@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-run batched dispatch: the batch dimension as the parallel axis.
 
-The reference fans runs over host process pools; on TPU the idiomatic
+The reference fans runs over host process pools; on a device the idiomatic
 equivalent is ONE device program per batch — runs concatenate on the event
 axis, sharing a single upload, dispatch, and fetch
 (reference analog: core/data/batch_processor.py:197).

@@ -15,7 +15,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
 from waveformanalysis_tpu.context.context import Context
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.utils.plugin_doc_generator import (
     PluginDocGenerator,
     check_doc_coverage,
@@ -26,7 +26,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         ctx = Context(storage_dir=str(Path(tmp) / "store"),
                       config={"show_progress": False})
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         gen = PluginDocGenerator(ctx)
 
         # -- 1. one page, human variant ------------------------------------

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
-"""Fused-chain demo: the flagship Pallas kernels end to end.
+"""Fused-chain demo: the whole features -> peaks -> hits -> widths -> S1/S2
+chain as ONE jitted device program (models/full_chain.py).
 
-Runs the same mixed S1/S2 batch through the three chain implementations —
-XLA (models/full_chain.py), tile Pallas (ops/chain_pallas.py), and the
-streaming-scan Pallas kernel (ops/chain_scan_pallas.py) — verifies they
-agree, and reports classification accuracy. On CPU the Pallas kernels run
-in interpret mode; on TPU they compile via Mosaic.
+Runs a mixed S1/S2 batch through the single-device chain and the chain
+sharded over every local device, checks that both agree, and reports
+classification accuracy.
 
 (reference analog: examples/s1_s2_pipeline_demo.ipynb, BASELINE config #4 —
 but through the fused device chain instead of the plugin DAG)
@@ -23,22 +22,22 @@ import jax
 
 import waveformanalysis_tpu as wa
 from waveformanalysis_tpu.models.full_chain import example_chain_batch
+from waveformanalysis_tpu.parallel.mesh import make_mesh
 
 
 def main() -> None:
-    on_tpu = jax.default_backend() == "tpu"
-    interpret = not on_tpu
-    n_events = 4096 if on_tpu else 256
+    n_dev = len(jax.devices())
+    n_events = (4096 if jax.default_backend() != "cpu" else 256) * n_dev
 
     cfg = wa.ChainConfig(use_derivative=False, peak_height=80.0,
                          peak_prominence=50.0, peak_width=2.0)
     batch = example_chain_batch(n_events=n_events, wave_length=256)
     truth = np.where(np.arange(n_events) % 2 == 0, 1, 2)  # odd idx = wide S2
 
+    mesh = make_mesh(n_devices=n_dev, axis_names=("data",))
     steps = {
-        "xla": wa.make_jit_chain(cfg),
-        "tile-pallas": wa.make_jit_chain_pallas(cfg, interpret=interpret),
-        "scan-pallas": wa.make_jit_chain_scan(cfg, interpret=interpret),
+        "single": wa.make_jit_chain(cfg),
+        f"sharded x{n_dev}": wa.make_sharded_chain(mesh, cfg),
     }
 
     outs = {}
@@ -53,13 +52,12 @@ def main() -> None:
               f"(incl. compile)  accuracy={acc:.3f}  "
               f"S1={int((labels == 1).sum())} S2={int((labels == 2).sum())}")
 
-    ref = outs["xla"]
-    for name in ("tile-pallas", "scan-pallas"):
-        same = all(
-            np.array_equal(np.asarray(ref[k]), np.asarray(outs[name][k]))
-            for k in ("label", "n_peaks", "peak_position", "n_hits")
-        )
-        print(f"{name:12s} outputs identical to XLA chain: {same}")
+    ref, other = outs.values()
+    same = all(
+        np.array_equal(np.asarray(ref[k]), np.asarray(other[k]))
+        for k in ("label", "n_peaks", "peak_position", "n_hits")
+    )
+    print(f"sharded outputs identical to the single-device chain: {same}")
 
 
 if __name__ == "__main__":

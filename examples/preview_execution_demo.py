@@ -16,14 +16,14 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 import numpy as np
 
 from waveformanalysis_tpu.context.context import Context
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.testing.fixtures import make_fake_st_waveforms
 
 
 def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         ctx = Context(storage_dir=tmp, config={"show_progress": False})
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         ctx.set_config({
             "hit": {"height": 120.0, "prominence": 40.0},
             "df_paired": {"time_window_ns": 250.0},

@@ -3,7 +3,7 @@
 
 (reference analog: examples/signal_processing_example.py — BASELINE config #1)
 
-Run with `python examples/signal_processing_example.py` (uses the TPU when
+Run with `python examples/signal_processing_example.py` (uses the GPU when
 available; set JAX_PLATFORMS=cpu for a quick local run).
 """
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""WaveformAnalysis-TPU getting-started tutorial (runnable walkthrough).
+"""WaveformAnalysis getting-started tutorial (runnable walkthrough).
 
 Follows the reference tutorial notebook's arc (/root/reference/
 tutorial.ipynb: concepts -> context -> data -> structure -> plotting ->
@@ -13,7 +13,7 @@ Core concepts
 - Lineage: every output is keyed by the sha1 of its full dependency +
   config cone; identical lineage = cache hit, changed lineage = recompute.
 - Data flows st_waveforms -> basic_features/hit -> df/df_events ->
-  df_paired, with the device kernels fused into single TPU programs.
+  df_paired, with the device kernels fused into single device programs.
 """
 
 import sys
@@ -48,14 +48,14 @@ def main() -> None:
     # -- 1/2. imports + Context + plugins ---------------------------------
     section("1-2. create a Context and register the default plugin set")
     from waveformanalysis_tpu.context.context import Context
-    from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+    from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
     ctx = Context(
         storage_dir=str(Path(tmp) / "store"),
         config={"data_root": daq_root, "daq_adapter": "vx2730",
                 "n_channels": 2, "show_progress": False},
     )
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     print(ctx.help())
 
     # -- 3. get data --------------------------------------------------------
@@ -110,7 +110,7 @@ def main() -> None:
     print("cache:", preview["cache_status"])
 
     section("summary: core API")
-    print("Context(storage_dir=..., config=...); ctx.register(*tpu_default())\n"
+    print("Context(storage_dir=..., config=...); ctx.register(*default_plugins())\n"
           "ctx.get_data(run, name)      # compute or cache-load\n"
           "ctx.get_data(run, [a, b])    # jointly planned, fused on device\n"
           "ctx.set_config({...})        # lineage-aware, invalidates caches\n"

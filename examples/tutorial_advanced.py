@@ -3,7 +3,7 @@
 
 Follows the reference advanced notebook's arc (/root/reference/
 tutorial_advanced.ipynb: scan DAQ runs -> write a custom feature plugin ->
-register -> single-run trial -> multi-run batch), then adds the TPU-native
+register -> single-run trial -> multi-run batch), then adds the device
 continuation: batched device dispatch and a device mesh.
 """
 
@@ -89,14 +89,14 @@ def main() -> None:
     # -- 4. context + registration --------------------------------------------
     section("4. Context + registration")
     from waveformanalysis_tpu.context.context import Context
-    from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+    from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
     ctx = Context(
         storage_dir=str(Path(tmp) / "store"),
         config={"data_root": daq_root, "daq_adapter": "vx2730",
                 "n_channels": 2, "show_progress": False},
     )
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     ctx.register(PulseWidthPlugin())
     print(ctx.help("pulse_width"))
 
@@ -132,7 +132,7 @@ def main() -> None:
           f"{len(batched)} runs in one fused program")
 
     # -- 7. next steps: shard over a mesh ----------------------------------------
-    section("7. next steps (TPU-native)")
+    section("7. next steps (device features)")
     import jax
 
     if len(jax.devices()) > 1:

@@ -15,7 +15,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
 from waveformanalysis_tpu.context.context import Context
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.testing.fixtures import make_fake_st_waveforms
 
 
@@ -99,7 +99,7 @@ def visualize_lineage(ctx) -> None:
 def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         ctx = Context(storage_dir=tmp, config={"show_progress": False})
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         run_id = "run_001"
         ctx.inject_data(run_id, "st_waveforms", make_fake_st_waveforms(
             n_events=32, wave_length=64, n_channels=2, pulse_start=20,

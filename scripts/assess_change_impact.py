@@ -77,7 +77,7 @@ def main() -> int:
 
     ctx = Context(storage_dir=args.storage_dir or tempfile.mkdtemp(),
                   config={"show_progress": False})
-    ctx.register(*get_profile("tpu"))
+    ctx.register(*get_profile("default"))
 
     changed = list(args.plugins)
     for f in args.file:

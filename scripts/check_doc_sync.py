@@ -84,11 +84,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from waveformanalysis_tpu.context.context import Context
-    from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+    from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
     with tempfile.TemporaryDirectory() as tmp:
         ctx = Context(storage_dir=tmp, config={"show_progress": False})
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
 
         if args.docs_dir is not None:
             return check_dir(ctx, Path(args.docs_dir), args.variant,

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Differential fuzz: Pallas scan chain vs the XLA chain across random
-configs (polarity mixes, variable lengths, all capacity/gating paths).
+"""Differential fuzz: the full chain (models/full_chain.py) against the
+per-event NumPy/SciPy oracle (testing/oracles.py) across random configs
+(polarity mixes, variable lengths, capacity overflow paths).
 
-Runs in interpret mode on the CPU backend; any mismatch prints the config
-that produced it. Used as a pre-release sweep beyond the fixed kernel
-tests (14/14 random configs passed at round 1 close).
+Any mismatch prints the config that produced it. A pre-release sweep
+beyond the fixed tests (tests/test_chain_oracle.py).
 
     JAX_PLATFORMS=cpu python scripts/fuzz_chain_configs.py [n_trials]
 """
@@ -23,7 +23,7 @@ from waveformanalysis_tpu.models.full_chain import (  # noqa: E402
     ChainConfig,
     full_chain_step,
 )
-from waveformanalysis_tpu.ops.chain_scan_pallas import chain_scan_pallas  # noqa: E402
+from waveformanalysis_tpu.testing.oracles import chain_oracle  # noqa: E402
 
 
 def main(n_trials: int = 14, seed: int = 99) -> int:
@@ -61,9 +61,8 @@ def main(n_trials: int = 14, seed: int = 99) -> int:
         args = (jnp.asarray(waves), jnp.asarray(el), jnp.asarray(bl),
                 jnp.asarray(pol))
         ref = jax.tree.map(np.asarray, full_chain_step(*args, cfg))
-        got = jax.tree.map(np.asarray,
-                           chain_scan_pallas(*args, cfg, interpret=True))
-        bad = [k for k in ref
+        got = chain_oracle(waves, el, bl, pol, cfg)
+        bad = [k for k in got
                if not np.allclose(ref[k], got[k], atol=2e-3, rtol=1e-4)]
         print(f"trial {trial:2d} L={L:3d} deriv={cfg.use_derivative} "
               f"K={cfg.max_peaks} Kh={cfg.max_hits}: "

@@ -52,7 +52,7 @@ def measure(targets, n_channels=2, n_rows=12, n_samples=128, reps=3):
                 config={"show_progress": False, "data_root": str(tmp),
                         "daq_adapter": "vx2730"},
             )
-            ctx.register(*get_profile("tpu"))
+            ctx.register(*get_profile("default"))
             tracemalloc.start()
             t0 = time.perf_counter()
             ctx.get_data("perf", target)

@@ -2,7 +2,7 @@
 """Scaffold a new plugin module with schema, options, kernel stub, and test.
 
 Behavioral analog of the reference scaffolder (reference:
-scripts/scaffold_plugin.py): generates an idiomatic TPU-native plugin
+scripts/scaffold_plugin.py): generates an idiomatic device plugin
 skeleton — Table output, jitted kernel stub, parity-test template.
 """
 

@@ -29,7 +29,7 @@ def snapshot() -> dict:
     from waveformanalysis_tpu.plugins.plugin_sets import get_profile
 
     ctx = Context(storage_dir=tempfile.mkdtemp(), config={"show_progress": False})
-    ctx.register(*get_profile("tpu"))
+    ctx.register(*get_profile("default"))
     out = {}
     for name, plugin in sorted(ctx.plugins.items()):
         spec = plugin._validated_spec

@@ -158,7 +158,7 @@ class TestV1725Corruption:
 class TestContextLevelCorruption:
     def test_run_with_one_corrupt_file_still_processes(self, tmp_path):
         from waveformanalysis_tpu.context.context import Context
-        from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+        from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
         daq = tmp_path / "daq"
         raw = daq / "run_x" / "RAW"
@@ -173,6 +173,6 @@ class TestContextLevelCorruption:
             config={"show_progress": False, "data_root": str(daq),
                     "daq_adapter": "vx2730"},
         )
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         rec = ctx.get_data("run_x", "records")
         assert len(rec) == 16  # malformed row skipped, the rest parsed

@@ -8,12 +8,14 @@ arg shapes). These tests force the cache on for the CPU backend via
 WFA_AOT_CACHE_DIR and drive the real fused-bundle programs.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 from waveformanalysis_tpu.context.context import Context
 from waveformanalysis_tpu.foundation import aot_cache
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.testing.fixtures import make_fake_st_waveforms
 
 
@@ -34,7 +36,7 @@ def aot_dir(tmp_path, monkeypatch):
 def basic_context(tmp_path):
     ctx = Context(storage_dir=str(tmp_path / "store"),
                   config={"show_progress": False})
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     st = make_fake_st_waveforms(
         n_events=40, wave_length=64, n_channels=2, pulse_start=20,
         pulse_width=6, pulse_height=250, noise_rms=2.0, seed=3,
@@ -180,13 +182,32 @@ def test_default_off_on_cpu(basic_context, tmp_path, monkeypatch):
     assert not list(tmp_path.glob("**/*.stablehlo"))
 
 
+@pytest.mark.parametrize("xla_env", [False, True])
+def test_accelerator_dir_follows_the_compile_cache(tmp_path, monkeypatch,
+                                                   xla_env):
+    """On an accelerator the AOT cache sits inside JAX_COMPILATION_CACHE_DIR
+    when that is set, else beside the checkout's XLA cache."""
+    monkeypatch.delenv("WFA_AOT_CACHE_DIR", raising=False)
+    monkeypatch.delenv("WFA_NO_AOT_CACHE", raising=False)
+    monkeypatch.setattr(aot_cache, "_configured_platform", lambda: "gpu")
+    monkeypatch.setattr(aot_cache, "_disabled_for_process", False)
+    if xla_env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "x"))
+        assert aot_cache.cache_dir() == str(tmp_path / "x" / "wfa_aot")
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert aot_cache.cache_dir() == aot_cache.DEFAULT_CACHE_DIR
+        assert aot_cache.DEFAULT_CACHE_DIR.endswith(
+            os.path.join(".jax_cache", "aot"))
+
+
 def test_short_lived_process_persists_export(tmp_path):
     """A process that exits right after computing a bundle must still
     write its export (atexit bounded flush): daemon export threads die
     with the interpreter, and short-lived processes — CLI invocations,
-    batch workers — are exactly who the AOT cache serves. Measured on the
-    TPU backend pre-fix: benchmark processes exited before the export and
-    the cache stayed empty forever (the layer was silently inert)."""
+    batch workers — are exactly who the AOT cache serves. Without the
+    flush, such processes exit before the export and the cache stays empty
+    forever (the layer is silently inert)."""
     import os
     import subprocess
     import sys
@@ -202,12 +223,12 @@ def test_short_lived_process_persists_export(tmp_path):
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
         "from waveformanalysis_tpu.context.context import Context\n"
-        "from waveformanalysis_tpu.plugins.plugin_sets import tpu_default\n"
+        "from waveformanalysis_tpu.plugins.plugin_sets import default_plugins\n"
         "from waveformanalysis_tpu.testing.fixtures import "
         "make_fake_st_waveforms\n"
         f"ctx = Context(storage_dir={str(tmp_path / 'store')!r},\n"
         "              config={'show_progress': False})\n"
-        "ctx.register(*tpu_default())\n"
+        "ctx.register(*default_plugins())\n"
         "st = make_fake_st_waveforms(n_events=16, wave_length=32,\n"
         "                            n_channels=2, seed=1)\n"
         "ctx.inject_data('r', 'st_waveforms', st)\n"

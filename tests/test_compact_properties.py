@@ -1,7 +1,7 @@
 """Property-based invariants for the minimal-transfer machinery.
 
 The device-side slot compaction and the flat packed-transfer codec are the
-load-bearing pieces of every fetch on the tunnel; these pin their laws over
+load-bearing pieces of every device->host fetch; these pin their laws over
 randomized inputs (hypothesis):
 
 - compact_slots front-packs valid slots in EXACTLY np.nonzero order (the

@@ -19,7 +19,7 @@ from waveformanalysis_tpu.config.compat import CompatManager
 from waveformanalysis_tpu.context.context import Context
 from waveformanalysis_tpu.context.resolution import resolve_dependencies
 from waveformanalysis_tpu.plugins.base import Option, Plugin
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.plugins.spec import PluginSpec
 
 
@@ -27,7 +27,7 @@ from waveformanalysis_tpu.plugins.spec import PluginSpec
 def profile_ctx(tmp_path_factory):
     ctx = Context(storage_dir=str(tmp_path_factory.mktemp("store")),
                   config={"show_progress": False})
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     from waveformanalysis_tpu.plugins.builtin.signal_peaks import (
         SignalPeaksStreamPlugin,
     )
@@ -81,7 +81,7 @@ class TestPluginContracts:
 
     def test_keys_stable_across_contexts(self, profile_ctx, tmp_path):
         ctx2 = Context(storage_dir=str(tmp_path), config={"show_progress": False})
-        ctx2.register(*tpu_default())
+        ctx2.register(*default_plugins())
         for name in ("basic_features", "hit", "df_paired", "records"):
             assert profile_ctx.key_for("r", name) == ctx2.key_for("r", name)
 

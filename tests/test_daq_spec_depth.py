@@ -94,9 +94,9 @@ class TestPluginSpec:
         assert tuple(getattr(wave_field, "shape", ()) or ()) in ((64,), ())
 
     def test_spec_from_every_builtin(self):
-        from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+        from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
-        for plugin in tpu_default():
+        for plugin in default_plugins():
             spec = PluginSpec.from_plugin(plugin)
             assert spec.provides == plugin.provides
             problems = spec.validate()

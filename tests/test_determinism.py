@@ -14,7 +14,7 @@ import pytest
 from utils import create_daq_run
 from waveformanalysis_tpu.context.context import Context
 from waveformanalysis_tpu.dtypes.table import Table
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
 TARGETS = ["st_waveforms", "records", "basic_features", "hit",
            "hit_threshold", "waveform_width", "s1_s2", "df_events"]
@@ -33,7 +33,7 @@ def _build(tmp_path, sub, daq_root, fused=True):
                                  "0:1": {"polarity": "positive"}},
         },
     )
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     ctx.set_config({
         "hit": {"use_filtered": False, "use_derivative": False,
                 "height": 100.0, "prominence": 50.0, "width": 2},

@@ -14,7 +14,7 @@ import pytest
 
 from waveformanalysis_tpu.context.context import Context
 from waveformanalysis_tpu.plugins.device_stream import DeviceKernelStream
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.plugins.streaming import (
     StreamingConfig,
     StreamingContext,
@@ -28,7 +28,7 @@ DEVICE_NAMES = ["basic_features", "hit", "hit_threshold",
 def _ctx(tmp_path, n=40):
     ctx = Context(storage_dir=str(tmp_path / "s"),
                   config={"show_progress": False})
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     st = make_fake_st_waveforms(
         n_events=n, wave_length=64, n_channels=2, pulse_start=20,
         pulse_width=6, pulse_height=250, noise_rms=2.0, seed=7,

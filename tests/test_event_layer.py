@@ -5,7 +5,7 @@ import pandas as pd
 import pytest
 
 from waveformanalysis_tpu.ops import grouping as G
-from waveformanalysis_tpu.plugins.plugin_sets import get_profile, tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import get_profile, default_plugins
 from waveformanalysis_tpu.plugins.builtin.basic_features import BasicFeaturesPlugin
 from waveformanalysis_tpu.plugins.builtin.dataframe import DataFramePlugin
 from waveformanalysis_tpu.plugins.builtin.event_analysis import (
@@ -319,7 +319,7 @@ class TestProfiles:
         from waveformanalysis_tpu.context.context import Context
 
         ctx = Context(storage_dir=str(tmp_path), config={"show_progress": False})
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         names = set(ctx.plugins)
         assert {
             "raw_files", "st_waveforms", "filtered_waveforms", "records",
@@ -330,7 +330,7 @@ class TestProfiles:
         }.issubset(names)
 
     def test_profile_lookup(self):
-        assert len(get_profile("tpu")) == len(get_profile("cpu"))
+        assert len(get_profile("default")) == len(get_profile("cpu"))
         with pytest.raises(KeyError):
             get_profile("bogus")
 
@@ -449,7 +449,7 @@ def test_reference_profile_names_all_work():
     from waveformanalysis_tpu.plugins.plugin_sets import get_profile
 
     base = {p.provides for p in get_profile("cpu_default")}
-    for name in ("cpu", "cpu_default", "jax", "jax_accel", "default", "tpu"):
+    for name in ("cpu", "cpu_default", "jax", "jax_accel", "default"):
         assert {p.provides for p in get_profile(name)} == base, name
     streaming = {p.provides for p in get_profile("streaming")}
     assert streaming == base | {"signal_peaks_stream"}

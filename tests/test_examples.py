@@ -14,8 +14,7 @@ import pytest
 
 EXAMPLES_DIR = Path(__file__).parent.parent / "examples"
 
-# every .py example; the Pallas-kernel demos fall back to interpret mode
-# on CPU and stay fast at demo shapes
+# every .py example; each stays fast on the CPU at demo shapes
 EXAMPLES = sorted(p.name for p in EXAMPLES_DIR.glob("*.py"))
 
 pytestmark = pytest.mark.slow

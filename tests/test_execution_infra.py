@@ -26,7 +26,25 @@ from waveformanalysis_tpu.execution.manager import (
 from waveformanalysis_tpu.foundation.progress import ProgressTracker
 
 
+def _worker_platform():
+    import jax
+
+    return jax.config.jax_platforms, jax.default_backend()
+
+
 class TestExecutorManager:
+    def test_process_workers_pinned_to_cpu(self, monkeypatch):
+        """A spawned worker inherits the parent's JAX_PLATFORMS (here one
+        this host cannot open) and still runs jax on the CPU only."""
+        from waveformanalysis_tpu.execution.manager import cpu_process_pool
+
+        monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+        with cpu_process_pool(1) as pool:
+            platforms, backend = pool.submit(_worker_platform).result(
+                timeout=120)
+        assert platforms == "cpu"
+        assert backend == "cpu"
+
     def test_pool_reuse_same_key(self):
         mgr = ExecutorManager.instance()
         with get_executor("t1", executor_type="thread", max_workers=2) as a:

@@ -58,10 +58,10 @@ class TestGetPluginsFromContext:
 
     def test_real_context(self, tmp_path):
         from waveformanalysis_tpu.context.context import Context
-        from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+        from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
         ctx = Context(storage_dir=str(tmp_path),
                       config={"show_progress": False})
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         plugins = get_plugins_from_context(ctx)
         assert "basic_features" in plugins

@@ -2,7 +2,7 @@
 
 The fused executor front-packs valid (n, K) hit/peak slots ON DEVICE and
 fetches only the first ``count`` rows of each compacted matrix
-(context/fusion.py _compact_slots / _fetch_packed_outputs), so the tunnel
+(context/fusion.py _compact_slots / _fetch_packed_outputs), so the link
 moves real hits instead of K-slot padding. These tests pin the compaction
 order to the host ``np.nonzero`` contract, the round trip through the
 two-phase fetch, and overflow-counter propagation through the fused path.

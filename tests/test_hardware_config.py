@@ -129,7 +129,7 @@ class TestVectorizedOverrides:
 class TestPluginPolarityFlow:
     def test_polarity_metadata_reaches_st_waveforms(self, tmp_path):
         from utils import create_daq_run
-        from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+        from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
         create_daq_run(tmp_path / "daq", "rp", n_channels=2, n_rows=6,
                        n_samples=32)
@@ -145,7 +145,7 @@ class TestPluginPolarityFlow:
                 },
             },
         )
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         st = ctx.get_data("rp", "st_waveforms")
         pol = np.asarray(st["polarity"])
         ch = np.asarray(st["channel"])

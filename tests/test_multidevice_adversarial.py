@@ -14,7 +14,7 @@ from waveformanalysis_tpu.dtypes.chunk import Chunk
 from waveformanalysis_tpu.dtypes.table import Table
 from waveformanalysis_tpu.parallel.mesh import make_mesh
 from waveformanalysis_tpu.plugins.device_stream import DeviceKernelStream
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from waveformanalysis_tpu.plugins.streaming import (
     StreamingConfig,
     StreamingContext,
@@ -28,7 +28,7 @@ def _ctx(tmp_path, sub="s", st=None, mesh=None, config=None):
     cfg = {"show_progress": False}
     cfg.update(config or {})
     ctx = Context(storage_dir=str(tmp_path / sub), config=cfg)
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     if mesh is not None:
         ctx.attach_mesh(mesh)
     if st is None:

@@ -1,7 +1,7 @@
 """Per-plugin Context integration matrix: every provided data name on a
 synthetic DAQ run (reference analog: tests/plugins/test_plugin_auto_config_*).
 
-For each data name the full tpu_default profile provides, this drives a
+For each data name the full default_plugins profile provides, this drives a
 REAL Context over a synthetic VX2730 run on disk: compute -> contract check
 -> memory-cache hit -> cloned-context disk reload equality. A second class
 runs the auto-config matrix: one option change per plugin must change its
@@ -15,7 +15,7 @@ import pytest
 
 from waveformanalysis_tpu.context.context import Context
 from waveformanalysis_tpu.dtypes.table import Table
-from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 from utils import create_daq_run
 
 RUN = "run_001"
@@ -74,7 +74,7 @@ def _make_ctx(storage_dir, daq_root) -> Context:
             },
         },
     )
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     # the synthetic square pulse is negative-going; detect on the inverted
     # signal with thresholds matched to the 300-ADC pulse
     ctx.set_config({
@@ -93,7 +93,7 @@ def ctx(tmp_path_factory, daq_root):
 
 
 def _profile_provides():
-    return [p.provides for p in tpu_default()]
+    return [p.provides for p in default_plugins()]
 
 
 def test_expected_kinds_cover_profile():
@@ -235,7 +235,7 @@ class TestV1725PluginMatrix:
                     "data_root": str(tmp_path / "daq"),
                     "daq_adapter": "v1725"},
         )
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         ctx.set_config({
             "raw_files": {"daq_adapter": "v1725"},
             "records": {"daq_adapter": "v1725"},
@@ -285,7 +285,7 @@ class TestV1725FullChain:
                     "data_root": str(tmp_path / "daq"),
                     "daq_adapter": "v1725"},
         )
-        ctx.register(*tpu_default())
+        ctx.register(*default_plugins())
         ctx.set_config({
             "raw_files": {"daq_adapter": "v1725"},
             "records": {"daq_adapter": "v1725"},

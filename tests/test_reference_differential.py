@@ -102,7 +102,7 @@ F4_FIELDS = {
     ("s1_s2", "height"), ("s1_s2", "area"),
     ("basic_features", "height"), ("basic_features", "amp"),
     ("basic_features", "area"), ("basic_features", "max_abs_diff"),
-    # q_total accumulates in f32 on the TPU (the reference cumsums in f8);
+    # q_total accumulates in f32 on the device (the reference cumsums in f8);
     # justified in docs/PARITY.md
     ("waveform_width_integral", "q_total"),
 }
@@ -174,7 +174,7 @@ def _build_ref_context(storage_dir, data_root, adapter, extra_config=None):
 
 def _build_our_context(storage_dir, data_root, adapter, extra_config=None):
     from waveformanalysis_tpu.context.context import Context
-    from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+    from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
     ctx = Context(
         storage_dir=str(storage_dir),
@@ -185,7 +185,7 @@ def _build_our_context(storage_dir, data_root, adapter, extra_config=None):
             "show_progress": False,
         },
     )
-    ctx.register(*tpu_default())
+    ctx.register(*default_plugins())
     cfg = dict(extra_config or {})
     if cfg:
         ctx.set_config(cfg)
@@ -214,7 +214,7 @@ def _drive_pair(tmp, data_root, adapter, ref_extra=None, our_extra=None,
         ref_hook(ref_ctx)
     ref = _materialize(ref_ctx, run_id)
     ours = _materialize(
-        _build_our_context(tmp / "store_tpu", root, adapter, our_extra),
+        _build_our_context(tmp / "store_ours", root, adapter, our_extra),
         run_id,
     )
     return ref, ours

@@ -139,7 +139,7 @@ SWEEPS = [
      ["basic_features"], ["basic_features"], None),
     # zero-phase filtering (reference: cpu/filtering.py options). The BW
     # branch is a forward-backward IIR cascade: our kernel recurses in f32
-    # (TPU-native) vs the reference's scipy f64 sosfiltfilt, so the wave
+    # (device) vs the reference's scipy f64 sosfiltfilt, so the wave
     # field gets an absolute tolerance (max observed ~2.3e-4 on +/-320 ADC
     # waves; docs/PARITY.md).
     ("filter_bw",

@@ -225,7 +225,7 @@ class TestConfigResolutionDifferential:
         from waveform_analysis.core.plugins import profiles
 
         from waveformanalysis_tpu.context.context import Context as OurCtx
-        from waveformanalysis_tpu.plugins.plugin_sets import tpu_default
+        from waveformanalysis_tpu.plugins.plugin_sets import default_plugins
 
         def build(cfg):
             tmp = tmp_path_factory.mktemp("cfgdiff")
@@ -234,7 +234,7 @@ class TestConfigResolutionDifferential:
             r = RefCtx(storage_dir=str(tmp / "r"), config=dict(base))
             r.register(*profiles.get_profile("cpu")())
             o = OurCtx(storage_dir=str(tmp / "o"), config=dict(base))
-            o.register(*tpu_default())
+            o.register(*default_plugins())
             return r, o
 
         return build

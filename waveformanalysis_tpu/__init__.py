@@ -1,4 +1,4 @@
-"""waveformanalysis_tpu — TPU-native DAQ waveform-processing framework.
+"""waveformanalysis_tpu — JAX DAQ waveform-processing framework for the GPU.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 SnowingWolf/WaveformAnalysis: a strax-style plugin DAG (raw DAQ files ->
@@ -6,7 +6,7 @@ records + wave_pool -> filtering -> hits/peaks -> features -> S1/S2 ->
 grouped events) orchestrated by a Context with content-addressed lineage
 caching — with every per-waveform kernel running as jitted JAX/Pallas code
 over batched arrays, and chunked streaming realized as a sharded scan over a
-TPU device mesh.
+device mesh.
 
 Public API mirrors the reference façade
 (reference: waveform_analysis/__init__.py:25-99) via lazy imports.
@@ -91,7 +91,7 @@ _LAZY_API = {
     "WaveformStructConfig": ("waveformanalysis_tpu.plugins.builtin.waveforms", "WaveformStructConfig"),
     "make_fake_st_waveforms": ("waveformanalysis_tpu.testing.fixtures", "make_fake_st_waveforms"),
     "make_tiny_context": ("waveformanalysis_tpu.testing.fixtures", "make_tiny_context"),
-    "tpu_default": ("waveformanalysis_tpu.plugins.plugin_sets", "tpu_default"),
+    "default_plugins": ("waveformanalysis_tpu.plugins.plugin_sets", "default_plugins"),
     "get_profile": ("waveformanalysis_tpu.plugins.plugin_sets", "get_profile"),
     "BatchProcessor": ("waveformanalysis_tpu.data.batch_processor", "BatchProcessor"),
     "PipelineServer": ("waveformanalysis_tpu.server", "PipelineServer"),
@@ -100,13 +100,10 @@ _LAZY_API = {
     "full_chain_step": ("waveformanalysis_tpu.models.full_chain", "full_chain_step"),
     "make_jit_chain": ("waveformanalysis_tpu.models.full_chain", "make_jit_chain"),
     "make_sharded_chain": ("waveformanalysis_tpu.models.full_chain", "make_sharded_chain"),
-    "make_jit_chain_pallas": ("waveformanalysis_tpu.ops.chain_pallas", "make_jit_chain_pallas"),
-    "chain_pallas": ("waveformanalysis_tpu.ops.chain_pallas", "chain_pallas"),
-    "make_sharded_chain_pallas": ("waveformanalysis_tpu.ops.chain_pallas", "make_sharded_chain_pallas"),
-    "make_jit_chain_scan": ("waveformanalysis_tpu.ops.chain_scan_pallas", "make_jit_chain_scan"),
-    "chain_scan_pallas": ("waveformanalysis_tpu.ops.chain_scan_pallas", "chain_scan_pallas"),
-    "find_peaks_scan": ("waveformanalysis_tpu.ops.chain_scan_pallas", "find_peaks_scan"),
-    "make_sharded_chain_scan": ("waveformanalysis_tpu.ops.chain_scan_pallas", "make_sharded_chain_scan"),
+    # GPU streaming-scan kernels (Pallas through Triton)
+    "find_peaks_scan": ("waveformanalysis_tpu.ops.scan_kernels", "find_peaks_scan"),
+    "threshold_hits_scan": ("waveformanalysis_tpu.ops.scan_kernels", "threshold_hits_scan"),
+    "sosfiltfilt_scan": ("waveformanalysis_tpu.ops.scan_kernels", "sosfiltfilt_scan"),
     # foundation
     "Profiler": ("waveformanalysis_tpu.foundation.profiler", "Profiler"),
     "OneTimeGenerator": ("waveformanalysis_tpu.foundation.utils",

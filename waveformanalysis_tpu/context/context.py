@@ -12,7 +12,7 @@ API surface — ``register``, ``get_data``, ``set_config``, ``get_config``,
 - memory results are validated against current lineage before reuse;
 - per-data-name storage backend overrides via ``config["plugin_backends"]``.
 
-TPU-native difference: plugin results may be struct-of-arrays Tables whose
+Device-native difference: plugin results may be struct-of-arrays Tables whose
 columns are device arrays; storage round-trips them through the packed
 per-field layout, and a plugin's ``kernel_version`` is folded into lineage so
 kernel revisions invalidate caches like plugin version bumps do.
@@ -21,7 +21,6 @@ kernel revisions invalidate caches like plugin version bumps do.
 from __future__ import annotations
 
 import logging
-import os
 import tempfile
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
@@ -47,37 +46,21 @@ from waveformanalysis_tpu.storage.memmap import MemmapStorage
 
 logger = logging.getLogger(__name__)
 
-_jax_cache_enabled_for: Optional[str] = None
+def _enable_jax_compilation_cache() -> None:
+    """Enable the persistent XLA compilation cache (idempotent).
 
-
-def _enable_jax_compilation_cache(setting: Any) -> None:
-    """Enable the persistent XLA compilation cache (stable per-user dir).
-
-    ``setting`` is the context config value: True (platform default policy),
-    or a string path (forces the cache on at that location). Best-effort and
-    idempotent; first caller wins (jax reads the setting at first compile).
-    An explicit JAX_COMPILATION_CACHE_DIR env var is respected. The cache
-    deliberately does NOT live under ``storage_dir``: benchmark/CI contexts
-    use throwaway storage dirs, and the whole point is that a fresh process
-    skips recompiling kernels it has built before.
-    (See foundation/compile_cache.py.)
+    Its directory is ``JAX_COMPILATION_CACHE_DIR`` when set, else one fixed
+    path inside the checkout (foundation/compile_cache.py); a Context
+    cannot move it. It deliberately does NOT live under ``storage_dir``:
+    benchmark/CI contexts use throwaway storage dirs, and the whole point
+    is that a fresh process skips recompiling kernels it has built before.
     """
-    global _jax_cache_enabled_for
-    if _jax_cache_enabled_for is not None:
-        return
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        _jax_cache_enabled_for = os.environ["JAX_COMPILATION_CACHE_DIR"]
-        return
     from waveformanalysis_tpu.foundation.compile_cache import (
         ensure_compilation_cache,
     )
 
-    if isinstance(setting, str):
-        path = ensure_compilation_cache(cache_dir=setting, force=True)
-    else:
-        path = ensure_compilation_cache()
+    path = ensure_compilation_cache()
     if path:
-        _jax_cache_enabled_for = path
         logger.debug("jax compilation cache -> %s", path)
 
 
@@ -144,7 +127,7 @@ class Context:
         else:
             self.storage_dir = storage_dir or self.config.get("storage_dir")
             if self.storage_dir is None:
-                self.storage_dir = tempfile.mkdtemp(prefix="wfa_tpu_storage_")
+                self.storage_dir = tempfile.mkdtemp(prefix="wfa_storage_")
                 logger.info("No storage_dir given; using %s", self.storage_dir)
             self.storage = MemmapStorage(self.storage_dir)
 
@@ -185,13 +168,11 @@ class Context:
 
         self.time_domain = TimeDomain(self)
 
-        # persistent XLA compilation cache next to the data cache: a fresh
-        # process's first jitted-kernel run loads the compiled executable
-        # instead of recompiling (~tens of seconds on TPU). Opt out with
-        # config={"jax_compilation_cache": False}.
-        _cache_setting = self.config.get("jax_compilation_cache", True)
-        if _cache_setting:
-            _enable_jax_compilation_cache(_cache_setting)
+        # persistent XLA compilation cache: a fresh process's first
+        # jitted-kernel run loads the compiled executable instead of
+        # recompiling. Opt out with config={"jax_compilation_cache": False}.
+        if self.config.get("jax_compilation_cache", True):
+            _enable_jax_compilation_cache()
 
         if register:
             self.register(*register)
@@ -509,7 +490,7 @@ class Context:
 
         The reference's multi-run story is host process fan-out
         (reference: waveform_analysis/core/data/batch_processor.py:197); the
-        TPU-native equivalent is the batch dimension: runs still to compute
+        device equivalent is the batch dimension: runs still to compute
         are planned individually, but their fused wave-chain bundles are
         concatenated and dispatched as ONE device program per matching
         device configuration, amortizing upload/dispatch/fetch latency over
@@ -954,8 +935,8 @@ class Context:
             "     }, storage_dir='./wfa_cache')",
             "",
             "2. Register a plugin profile:",
-            "     from waveformanalysis_tpu.plugins.plugin_sets import tpu_default",
-            "     ctx.register(*tpu_default())",
+            "     from waveformanalysis_tpu.plugins.plugin_sets import default_plugins",
+            "     ctx.register(*default_plugins())",
             "",
             f"3. Compute any data name (full DAG runs on demand):",
             f"     data = ctx.get_data('run_001', {target!r})",

@@ -225,7 +225,7 @@ class BatchProcessor:
         """Device-batched multi-run execution.
 
         The reference fans runs over host process pools
-        (reference: batch_processor.py:197); on TPU the batch dimension IS
+        (reference: batch_processor.py:197); on a device the batch dimension IS
         the parallel axis: all runs dispatch through
         ``Context.get_data_batched``, which concatenates their fused wave
         bundles into one device program per matching configuration. Falls

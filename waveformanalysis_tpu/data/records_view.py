@@ -5,7 +5,7 @@ Behavioral analog of the reference RecordsView
 wave access by record_id (``waves``), polarity-normalized signal access
 (``signals`` = baseline-relative, positive-going), and window slicing.
 
-TPU-native extension: :meth:`padded_wave_matrix` materializes the whole pool
+Device-path extension: :meth:`padded_wave_matrix` materializes the whole pool
 as a padded (n_records, L_bucket) int16 matrix in one vectorized gather — the
 layout every batched device kernel consumes — with per-record true lengths.
 """
@@ -88,7 +88,7 @@ class RecordsView:
     def baseline(self, record_id: int) -> float:
         return float(self._baselines[self._row(record_id)])
 
-    # -- batched access (TPU path) ---------------------------------------------
+    # -- batched access (device path) ------------------------------------------
 
     def padded_wave_matrix(
         self,
@@ -100,7 +100,8 @@ class RecordsView:
 
         Returns (waves[n, L], event_length[n]); padding samples are 0 and the
         length array marks each record's true extent. L pads up to a multiple
-        of 128 (TPU lane width) unless ``pad_to`` overrides it.
+        of 128 (bounding the number of compiled shapes) unless ``pad_to``
+        overrides it.
         """
         offsets = self._offsets if rows is None else self._offsets[rows]
         lengths = self._lengths if rows is None else self._lengths[rows]

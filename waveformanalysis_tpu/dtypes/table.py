@@ -2,7 +2,7 @@
 
 The reference passes NumPy structured arrays between plugins
 (reference: waveform_analysis/core/processing/dtypes.py). XLA has no
-structured dtypes, so the TPU-native data model is a ``Table``: an ordered
+structured dtypes, so the device data model is a ``Table``: an ordered
 dict of equal-length arrays (NumPy on host, jax.Array on device), registered
 as a JAX pytree so whole tables flow through ``jit``/``shard_map``
 untouched. Field access (``tbl["wave"]``), ``len``, boolean-mask selection

@@ -6,7 +6,7 @@ counts from CPU/memory pressure (psutil when available) and task history,
 quantized to power-of-two buckets like the streaming engine
 (reference: streaming.py:212-258).
 
-TPU note: this governs host-side pools only (decode, multi-run fan-out); on
+Note: this governs host-side pools only (decode, multi-run fan-out); on
 device the analog knob is the event batch size, exposed via
 ``suggest_batch_size``.
 """

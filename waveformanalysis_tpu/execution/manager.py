@@ -7,14 +7,18 @@ process-wide ExecutorManager hands out thread/process pools keyed by
 acquisition, plus ``parallel_map`` / ``parallel_apply`` conveniences with
 optional progress.
 
-In the TPU-native design these pools serve *host-side* work only (file
-parsing, per-run fan-out); device parallelism is the batch axis of jitted
-kernels. Named EXECUTOR_CONFIGS keep the reference's tuning vocabulary.
+In this design these pools serve *host-side* work only (file parsing,
+per-run fan-out); device parallelism is the batch axis of jitted kernels.
+Process workers are spawned (never forked from a parent that may hold the
+GPU) and pinned to the CPU backend before anything imports jax, so a
+worker never opens the card a second time. Named EXECUTOR_CONFIGS keep
+the reference's tuning vocabulary.
 """
 
 from __future__ import annotations
 
 import logging
+import multiprocessing
 import os
 import threading
 from concurrent.futures import (
@@ -40,6 +44,27 @@ EXECUTOR_CONFIGS: Dict[str, Dict[str, Any]] = {
     "event_grouping": {"executor_type": "process", "max_workers": None},
     "feature_computation": {"executor_type": "thread", "max_workers": 8},
 }
+
+
+def _cpu_only_worker() -> None:
+    """Process-pool initializer: host work only, never a device backend.
+
+    Unpickling this initializer already imports jax, which read the
+    parent's JAX_PLATFORMS at import; the config update is what pins the
+    worker (no backend is initialised before it)."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
+
+def cpu_process_pool(workers: Optional[int] = None) -> ProcessPoolExecutor:
+    """A spawned process pool whose workers run jax on the CPU backend."""
+    return ProcessPoolExecutor(
+        max_workers=workers,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_only_worker,
+    )
 
 
 def resolve_executor_config(name: str) -> Dict[str, Any]:
@@ -145,7 +170,7 @@ class ExecutorManager:
 
     def _make(self, executor_type: str, workers: int) -> Executor:
         if executor_type == "process":
-            return ProcessPoolExecutor(max_workers=workers)
+            return cpu_process_pool(workers)
         return ThreadPoolExecutor(max_workers=workers)
 
     # -- lifecycle ---------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Foundation layer: errors, profiling, progress, time conversion, units, constants.
 
-TPU-native rebuild of the reference foundation layer
+Rebuild of the reference foundation layer
 (reference: waveform_analysis/core/foundation/).
 """
 

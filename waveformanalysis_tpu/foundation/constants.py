@@ -3,7 +3,7 @@
 Semantics mirror the reference's foundation constants
 (reference: waveform_analysis/core/foundation/constants.py) so that numeric
 defaults (feature windows, chunk sizes, ...) produce identical results.
-TPU-specific tiling constants are new here.
+The event-axis compilation buckets are new here.
 """
 
 from __future__ import annotations
@@ -59,27 +59,17 @@ class ValidationDefaults:
     MAX_MEMORY_USAGE = 8 * 1024 * 1024 * 1024  # bytes
 
 
-class TPUDefaults:
-    """TPU-specific shape/tiling policy (new in this build; no reference analog).
+class BatchDefaults:
+    """Event-axis shape policy (new in this build; no reference analog).
 
-    Batched waveform kernels pad the event axis to a multiple of SUBLANE and the
-    sample axis to a multiple of LANE so XLA/Mosaic can tile them onto the VPU/MXU
-    without relayout. Length bucketing keeps recompilation bounded: event counts
-    are padded up to the next bucket boundary.
+    Length bucketing keeps recompilation bounded: event counts are padded up
+    to the next bucket boundary.
     """
-
-    LANE = 128  # last-dim tile (all dtypes)
-    SUBLANE_F32 = 8  # second-to-last-dim tile for f32
-    SUBLANE_BF16 = 16
-    SUBLANE_I8 = 32
 
     # Event-axis bucket sizes: pad n_events up to the next power of two between
     # these bounds (below MIN -> MIN; above MAX -> multiple of MAX).
     MIN_EVENT_BUCKET = 128
     MAX_EVENT_BUCKET = 1 << 20
-
-    # Max hits/peaks emitted per waveform in fixed-capacity kernels.
-    MAX_HITS_PER_WAVEFORM = 32
 
 
 class VisualizationDefaults:
@@ -97,12 +87,12 @@ def event_bucket(n: int) -> int:
 
     Keeps the number of distinct jit shapes logarithmic in data size.
     """
-    if n <= TPUDefaults.MIN_EVENT_BUCKET:
-        return TPUDefaults.MIN_EVENT_BUCKET
-    if n >= TPUDefaults.MAX_EVENT_BUCKET:
-        m = TPUDefaults.MAX_EVENT_BUCKET
+    if n <= BatchDefaults.MIN_EVENT_BUCKET:
+        return BatchDefaults.MIN_EVENT_BUCKET
+    if n >= BatchDefaults.MAX_EVENT_BUCKET:
+        m = BatchDefaults.MAX_EVENT_BUCKET
         return ((n + m - 1) // m) * m
-    b = TPUDefaults.MIN_EVENT_BUCKET
+    b = BatchDefaults.MIN_EVENT_BUCKET
     while b < n:
         b <<= 1
     return b

@@ -6,7 +6,7 @@ an epoch anchors a run's relative timestamps (default ns) to wall-clock
 datetimes; the extractor recovers epochs from filenames, CSV headers, file
 mtimes, or explicit configuration. Conversions are vectorized over NumPy
 arrays — device arrays are converted at the host boundary since datetimes
-never live on the TPU.
+never live on the device.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ run_config ``channel_metadata``) provides layered overrides — run block ->
 keyed as ``"board:channel"`` / ``(board, channel)`` — for values like
 ``polarity``, ``fixed_baseline``, ``gain_adc_per_pe``, ``adc_bits``.
 
-TPU-native extension: the reference resolves per *record* in a Python loop;
+Device-path extension: the reference resolves per *record* in a Python loop;
 here :func:`resolve_channel_value_arrays` resolves once per unique hardware
 channel and gathers into dense per-event arrays, which is the form device
 kernels consume.
@@ -250,7 +250,7 @@ def get_polarity(
 
 
 # --------------------------------------------------------------------------
-# Grouping / vectorized resolution (TPU-friendly)
+# Grouping / vectorized resolution (device-friendly)
 # --------------------------------------------------------------------------
 
 def unique_hardware_channels(boards: Any, channels: Any) -> List[HardwareChannel]:

@@ -6,12 +6,12 @@ finding, threshold-run detection, 10-90% width crossings, range
 classification) that the plugin DAG runs as separate steps — here they fuse
 into a single XLA program over a padded (n_events, wave_len) batch so the
 wave matrix streams from HBM once per kernel family with no host hops.
-This is the TPU-native answer to the reference's per-plugin NumPy passes
+This is the device answer to the reference's per-plugin NumPy passes
 (SURVEY.md §3.1 hot loops) and the benchmark target
 (records->features->S1/S2, BASELINE.md).
 
 Multi-chip: :func:`make_sharded_chain` shards the event axis over a
-("data",) mesh; label counts and total area psum-reduce over ICI.
+("data",) mesh; label counts and total area psum-reduce across devices.
 """
 
 from __future__ import annotations
@@ -283,12 +283,11 @@ def example_chain_batch(
     """Synthetic mixed S1/S2 batch (positive pulses) for the chain."""
     rng = np.random.default_rng(seed)
     t = np.arange(wave_length)
-    waves = np.full((n_events, wave_length), 1000.0)
-    for i in range(n_events):
-        c = rng.integers(60, wave_length - 60)
-        sigma = 3.0 if i % 2 == 0 else 25.0
-        amp = 400.0 if i % 2 == 0 else 250.0
-        waves[i] += amp * np.exp(-((t - c) ** 2) / (2 * sigma**2))
+    c = rng.integers(60, wave_length - 60, size=n_events)[:, None]
+    odd = (np.arange(n_events) % 2 == 1)[:, None]
+    sigma = np.where(odd, 25.0, 3.0)
+    amp = np.where(odd, 250.0, 400.0)
+    waves = 1000.0 + amp * np.exp(-((t - c) ** 2) / (2 * sigma**2))
     waves += rng.normal(0, 2, waves.shape)
     waves = np.round(waves).astype(np.int16)
     return (

@@ -1,6 +1,6 @@
 """Native (C++) helpers for host-side hot paths.
 
-The TPU compute path is JAX/Pallas; the host runtime around it (DAQ decode,
+The device compute path is JAX/Pallas; the host runtime around it (DAQ decode,
 IO) uses small C++ components where Python-side conversion dominated
 profiles. Components are built on demand with the system g++ into the
 package directory and loaded via ctypes (no pybind11 in this toolchain);

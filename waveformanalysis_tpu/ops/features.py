@@ -1,6 +1,6 @@
 """Basic waveform feature kernels (height / amp / area / max_abs_diff).
 
-TPU-native replacement for the reference per-event Python loops
+Device replacement for the reference per-event Python loops
 (reference: waveform_analysis/core/plugins/builtin/cpu/basic_features.py:
 89-278). Numeric contract (matched exactly):
 
@@ -81,8 +81,8 @@ def feature_reductions(
     count_h = jnp.sum(hmask, axis=1, dtype=jnp.int32)
 
     # int32 is exact while L * 32768 < 2^31, i.e. wave_len < 65536 — enforced
-    # by callers; avoids x64 emulation on TPU. Float sources accumulate in
-    # f32 (f64 is emulated on TPU; documented rtol-1e-5 class).
+    # by callers; keeps the reduction in 32-bit. Float sources accumulate in
+    # f32 (documented rtol-1e-5 class).
     sum_a = jnp.sum(jnp.where(amask, w, jnp.zeros((), w.dtype)), axis=1,
                     dtype=jnp.float32 if is_float else jnp.int32)
     count_a = jnp.sum(amask, axis=1, dtype=jnp.int32)

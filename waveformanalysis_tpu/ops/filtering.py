@@ -1,6 +1,6 @@
 """Digital filtering kernels: zero-phase IIR (Butterworth) and Savitzky-Golay.
 
-TPU-native replacement for the reference scipy filtering layer
+Device replacement for the reference scipy filtering layer
 (reference: waveform_analysis/core/plugins/builtin/cpu/filtering.py:129-260).
 Numeric contract:
 
@@ -28,6 +28,8 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+
+from waveformanalysis_tpu.ops.dispatch import kernel_for
 
 KERNEL_VERSION = "filtering-v1"
 
@@ -104,16 +106,19 @@ def _sos_section_scan(x: jax.Array, b: jax.Array, a: jax.Array,
     batch_shape = x.shape[:-1]
     A = jnp.broadcast_to(A, batch_shape + (L, 2, 2))
 
+    # float32 products must not drop to TF32 on a GPU
+    hi = jax.lax.Precision.HIGHEST
+
     def combine(left, right):
         A1, c1 = left
         A2, c2 = right
         return (
-            jnp.einsum("...ij,...jk->...ik", A2, A1),
-            jnp.einsum("...ij,...j->...i", A2, c1) + c2,
+            jnp.einsum("...ij,...jk->...ik", A2, A1, precision=hi),
+            jnp.einsum("...ij,...j->...i", A2, c1, precision=hi) + c2,
         )
 
     # fold zi into the first element: z[0] = M zi + v x[0]
-    c = c.at[..., 0, :].add(jnp.einsum("ij,...j->...i", M, zi))
+    c = c.at[..., 0, :].add(jnp.einsum("ij,...j->...i", M, zi, precision=hi))
     A_scan, c_scan = jax.lax.associative_scan(combine, (A, c), axis=len(batch_shape))
     # z[n] available for all n; y[n] = b0 x[n] + z1[n-1]
     z1_prev = jnp.concatenate(
@@ -168,12 +173,14 @@ def _sosfiltfilt_device_core(
 
 
 def sosfiltfilt_device(
-    waves: Any, sos: np.ndarray, dtype: Any = np.float32
+    waves: Any, sos: np.ndarray, dtype: Any = np.float32,
+    backend: str = "auto",
 ) -> np.ndarray:
     """Zero-phase Butterworth on device; waves (n, L) -> filtered (n, L).
 
     Waves with L <= padlen are returned unfiltered (reference padlen guard,
-    filtering.py:219-224).
+    filtering.py:219-224). ``backend`` ("auto" | "xla" | "scan") picks the
+    formulation through ops/dispatch.py.
     """
     waves = np.asarray(waves, dtype=np.float32)
     squeeze = waves.ndim == 1
@@ -184,14 +191,13 @@ def sosfiltfilt_device(
         out = waves.astype(dtype, copy=True)
         return out[0] if squeeze else out
 
-    # On TPU, the sequential Pallas cascade (ops/filter_pallas.py) is both
-    # faster than the associative-scan formulation and the only one whose
-    # compile scales to production batch sizes (the scan's (n, L, 2, 2)
-    # affine maps blow up XLA compile memory at n ~ 64k).
-    if jax.default_backend() == "tpu":
-        from waveformanalysis_tpu.ops.filter_pallas import sosfiltfilt_pallas
+    # the GPU runs the sequential cascade (ops/scan_kernels.py): O(L) work
+    # with biquad state in registers, against the associative scan's
+    # O(L log L) work over (n, L, 2, 2) affine maps
+    if kernel_for("sosfiltfilt", backend) == "scan":
+        from waveformanalysis_tpu.ops.scan_kernels import sosfiltfilt_scan
 
-        out = sosfiltfilt_pallas(waves, sos, dtype=dtype)
+        out = np.asarray(sosfiltfilt_scan(waves, sos), dtype=dtype)
         return out[0] if squeeze else out
 
     zi = sosfilt_zi(sos)
@@ -252,14 +258,19 @@ def _savgol_device_core(
 ) -> jax.Array:
     fir, E_left, E_right = _savgol_matrices(window, polyorder)
     halflen = window // 2
+    # float32 convolution and products must not drop to TF32 on a GPU
+    hi = jax.lax.Precision.HIGHEST
     # interior: 1-D correlation via conv_general_dilated (batch, 1, L)
     x = waves[:, None, :]
     k = jnp.asarray(fir, dtype=waves.dtype)[None, None, :]
     interior = jax.lax.conv_general_dilated(
-        x, k, window_strides=(1,), padding="VALID",
+        x, k, window_strides=(1,), padding="VALID", precision=hi,
     )[:, 0, :]  # (n, L - window + 1): value at positions halflen..L-halflen-1
-    left = waves[:, :window] @ jnp.asarray(E_left, dtype=waves.dtype).T
-    right = waves[:, -window:] @ jnp.asarray(E_right, dtype=waves.dtype).T
+    left = jnp.matmul(waves[:, :window],
+                      jnp.asarray(E_left, dtype=waves.dtype).T, precision=hi)
+    right = jnp.matmul(waves[:, -window:],
+                       jnp.asarray(E_right, dtype=waves.dtype).T,
+                       precision=hi)
     return jnp.concatenate([left, interior, right], axis=-1)
 
 
@@ -313,13 +324,18 @@ def apply_filter(
     sg_window_size: Optional[int] = None,
     sg_poly_order: Optional[int] = None,
     engine: str = "device",
+    backend: str = "auto",
 ) -> np.ndarray:
-    """Apply a configured filter to a (n, L) batch; returns float32."""
+    """Apply a configured filter to a (n, L) batch; returns float32.
+
+    ``backend`` picks the device Butterworth formulation (see
+    ``sosfiltfilt_device``); Savitzky-Golay and the scipy engine ignore it."""
     if filter_type == "BW":
         if bw_sos is None:
             raise ValueError("BW filter requires SOS coefficients")
-        fn = sosfiltfilt_device if engine == "device" else sosfiltfilt_scipy
-        return fn(waves, bw_sos)
+        if engine == "device":
+            return sosfiltfilt_device(waves, bw_sos, backend=backend)
+        return sosfiltfilt_scipy(waves, bw_sos)
     if filter_type == "SG":
         if sg_window_size is None or sg_poly_order is None:
             raise ValueError("SG filter requires sg_window_size and sg_poly_order")

@@ -1,4 +1,4 @@
-"""Device (TPU) event-grouping kernels: jitted anchor-window clustering and
+"""Device event-grouping kernels: jitted anchor-window clustering and
 chained-gap coincidence.
 
 These are the jax rebuilds of the host kernels in
@@ -6,8 +6,8 @@ These are the jax rebuilds of the host kernels in
 (reference behavior: waveform_analysis/core/processing/event_grouping.py:
 99-526 — the numba boundary loop at :478).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 - The anchor-window chain (each cluster = hits within ``window`` of its
   first hit) is inherently sequential in its naive form: the next anchor is
   only known once the previous one is. The reference needed numba for this

@@ -1,6 +1,6 @@
 """Threshold-crossing hit detection kernel.
 
-TPU-native replacement for the reference vectorized threshold hit builder
+Device replacement for the reference vectorized threshold hit builder
 (reference: waveform_analysis/core/plugins/builtin/cpu/hit_finder.py:329-415
 and the padded mask-diff primitive event_grouping.py:47-95). Contract:
 
@@ -63,7 +63,7 @@ def threshold_hits_batch(
 
     n_runs = jnp.sum(is_start, axis=1, dtype=jnp.int32)
 
-    # compact starts/ends by position into (n, K) — sort-free (TPU)
+    # compact starts/ends by position into (n, K) — sort-free
     pos_b = jnp.broadcast_to(pos, (n, L))
     (starts,), s_ok = compact_first_k(is_start, (pos_b,), K, (0,))
     (ends_incl,), e_ok = compact_first_k(is_end, (pos_b,), K, (0,))

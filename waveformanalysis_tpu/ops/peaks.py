@@ -1,6 +1,6 @@
 """Peak detection kernel: scipy.signal.find_peaks parity on device.
 
-TPU-native replacement for the reference per-waveform scipy loop
+Device replacement for the reference per-waveform scipy loop
 (reference: waveform_analysis/core/plugins/builtin/cpu/peak_finding.py:
 446-620). Implements the find_peaks pipeline — plateau-aware local maxima,
 height filter, greedy distance pruning by height priority, prominence with
@@ -44,8 +44,9 @@ def compact_first_k(flags: jax.Array, arrays: Tuple[jax.Array, ...], K: int,
     """Compact the first K flagged columns (in positional order) of each
     (n, L) array into (n, K), without a sort.
 
-    XLA sorts lower poorly on TPU; a cumsum rank plus K argmax passes is
-    bandwidth-bound instead. Returns (compacted_arrays, ok_mask).
+    A cumsum rank plus K argmax passes is bandwidth-bound and needs no sort
+    (a formulation chosen for a compiler whose sorts were slow; not yet
+    re-derived for the GPU). Returns (compacted_arrays, ok_mask).
     """
     n = flags.shape[0]
     rank = jnp.cumsum(flags.astype(jnp.int32), axis=1)
@@ -111,8 +112,8 @@ def find_peaks_batch(
     x = jnp.where(in_range, x, _NEG)
 
     # ---- local maxima with plateau midpoints --------------------------------
-    # TPU note: no L-wide gathers or sorts here — gathers along the lane axis
-    # and XLA sorts lower poorly on TPU. The last-nonzero-diff index and its
+    # No L-wide gathers or sorts here (the formulation avoids both; not yet
+    # re-derived for the GPU). The last-nonzero-diff index and its
     # rise/fall direction pack into one int (idx*2 + rise) carried by a single
     # cummax; the plateau's value is constant, so the value at the midpoint is
     # just the value at the plateau's right edge, i.e. x[:, :-1] elementwise.
@@ -173,7 +174,7 @@ def find_peaks_batch(
 
     # ---- compact to (n, K) by position --------------------------------------
     # first K peaks in positional order via cumsum ranks + K argmaxes
-    # (replaces an argsort over L, which is slow on TPU)
+    # (replaces an argsort over L)
     (positions, values), cand_valid = compact_first_k(
         is_peak, (midpoint, peak_value), K, (-1, _NEG)
     )
@@ -184,7 +185,7 @@ def find_peaks_batch(
     if distance > 1:
         # priority: higher value first; ties -> later position first (scipy
         # processes a stable argsort(values) from the end). Computed as a
-        # K^2 comparison-count rank — XLA sorts are slow on TPU even at K=8.
+        # K^2 comparison-count rank instead of a sort.
         v_i = values[:, :, None]  # candidate i
         v_j = values[:, None, :]  # candidate j
         jdx = jax.lax.broadcasted_iota(jnp.int32, (1, K, K), 2)

@@ -1,7 +1,7 @@
 """Device mesh construction helpers.
 
 The reference scales with thread/process pools on one host
-(reference: waveform_analysis/core/execution/manager.py:35); the TPU-native
+(reference: waveform_analysis/core/execution/manager.py:35); the device
 equivalent is a jax device Mesh. The canonical layout here is 1-D
 ``("data",)`` — chunks of the time-sorted record stream are the unit of
 data parallelism — with an optional 2-D ``("data", "channel")`` layout when

@@ -1,6 +1,6 @@
 """Sharded time-axis execution over a device mesh.
 
-TPU-native replacement for the reference's chunk-parallel thread/process
+Device replacement for the reference's chunk-parallel thread/process
 pools (reference: waveform_analysis/core/plugins/core/streaming.py:740):
 chunks of the time-sorted record stream become shards of the event axis
 across a 1-D ``("data",)`` mesh; windowed kernels receive halo rows from

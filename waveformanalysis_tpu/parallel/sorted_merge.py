@@ -7,7 +7,7 @@ the host-side ordered chunk merge in its streaming executor
 the records lexsort merge (records_builder.py:115-120) — both single-host,
 single-array operations.
 
-TPU-native design: a block odd-even transposition sort (merge-split) over
+Design: a block odd-even transposition sort (merge-split) over
 the mesh axis.
 
 1. Each shard stable-sorts its rows locally by the composite key

@@ -8,7 +8,7 @@ across the MRO in ``__init_subclass__``; dependencies may carry version
 constraints ``(name, ">=1.0")``; ``resolve_depends_on`` enables dynamic
 dependencies; ``validate`` enforces the structural contract at registration.
 
-TPU-native difference: ``compute`` returns a
+Device-native difference: ``compute`` returns a
 :class:`~waveformanalysis_tpu.dtypes.table.Table` of (possibly device)
 arrays, a NumPy structured array, or any host object — the Context
 normalizes. A plugin may also expose ``kernel_version``: a string folded

@@ -14,11 +14,6 @@ from typing import Any, Optional
 
 import numpy as np
 
-# Eager import: pandas costs ~0.7 s to import; paying it at plugin-module
-# import (registration) instead of inside the first compute keeps the first
-# get_data() out of the interpreter-warmup business.
-import pandas as pd
-
 from waveformanalysis_tpu.dtypes.table import Table
 from waveformanalysis_tpu.hardware import parse_channel_ref
 from waveformanalysis_tpu.plugins.base import Option, Plugin
@@ -61,6 +56,10 @@ class DataFramePlugin(Plugin):
         if not isinstance(features, Table):
             features = Table.from_numpy(features)
         n = len(features)
+        # pandas only where a DataFrame is built: registering the default
+        # profile must not need it (pyproject extra "full")
+        import pandas as pd
+
         df = pd.DataFrame({
             "timestamp": np.asarray(features["timestamp"], np.int64),
             "board": np.asarray(features["board"], np.int16),

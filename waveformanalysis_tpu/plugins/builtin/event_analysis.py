@@ -113,7 +113,7 @@ def _grouping_options() -> Dict[str, Option]:
 class EventsPlugin(Plugin):
     """Columnar per-event aggregates (events table + offsets).
 
-    The TPU-native alternative to df_events' per-event object cells: the
+    The device-friendly alternative to df_events' per-event object cells: the
     same clustering, but the outputs are flat device-consumable columns —
     pair with ``event_hits`` for the hit-level values. Values/order are
     bit-identical to the df_events cells (tests/test_event_layer.py).

@@ -25,7 +25,7 @@ from waveformanalysis_tpu.plugins.base import Option, Plugin
 
 logger = logging.getLogger(__name__)
 
-FILTER_ENGINE_VERSION = "3.1.0"  # 3.1: own schema name (cached f4 waves no longer reload as int16)
+FILTER_ENGINE_VERSION = "3.2.0"  # 3.2: filter_backend option
 FILTER_OPTION_NAMES = (
     "filter_type",
     "lowcut",
@@ -161,6 +161,12 @@ class FilteredWaveformsPlugin(Plugin):
         "engine": Option(default="device", type=str, track=False,
                          choices=["device", "scipy"],
                          help="Kernel engine (perf knob, untracked)"),
+        "filter_backend": Option(
+            default="auto", type=str, track=False,
+            choices=["auto", "scan", "xla"],
+            help="device Butterworth kernel: sequential cascade (GPU, "
+                 "ops/scan_kernels.py) or XLA associative scan; auto picks "
+                 "by platform (ops/dispatch.py)"),
     }
 
     def compute(self, context: Any, run_id: str, **kwargs: Any) -> Table:
@@ -174,6 +180,7 @@ class FilteredWaveformsPlugin(Plugin):
                 schema=FILTERED_WAVEFORM_SCHEMA, validate=False,
             )
         engine = context.get_config(self, "engine")
+        backend = context.get_config(self, "filter_backend")
         channel_config = context.get_config(self, "channel_config")
         base_values = get_filter_base_values(context, self)
 
@@ -194,7 +201,7 @@ class FilteredWaveformsPlugin(Plugin):
                 bw_sos=cfg["bw_sos"],
                 sg_window_size=cfg["sg_window_size"],
                 sg_poly_order=cfg["sg_poly_order"],
-                engine=engine,
+                engine=engine, backend=backend,
             )
 
         cols = dict(data.columns)

@@ -21,6 +21,7 @@ from waveformanalysis_tpu.dtypes.schema import Field, Schema
 from waveformanalysis_tpu.dtypes.table import Table
 from waveformanalysis_tpu.hardware import resolve_channel_value_arrays
 from waveformanalysis_tpu.ops import hits as HT
+from waveformanalysis_tpu.ops.dispatch import kernel_for
 from waveformanalysis_tpu.plugins.base import Option, Plugin
 from waveformanalysis_tpu.plugins.builtin._wave_source import (
     WAVE_SOURCE_AUTO,
@@ -59,7 +60,7 @@ class ThresholdHitPlugin(Plugin):
     uses_run_config = True
     depends_on = []  # dynamic
     description = "Threshold-only hit detector with THRESHOLD_HIT_DTYPE output."
-    version = "0.12.0"
+    version = "0.13.0"  # 0.13: hits_backend resolves through ops/dispatch.py
     kernel_version = HT.KERNEL_VERSION
     save_when = "always"
     output_dtype = THRESHOLD_HIT_SCHEMA
@@ -81,8 +82,9 @@ class ThresholdHitPlugin(Plugin):
         "hits_backend": Option(
             default="auto", type=str, track=False,
             choices=["auto", "scan", "xla"],
-            help="threshold-run kernel: streaming-scan Pallas (TPU) or XLA; "
-                 "auto picks scan on TPU"),
+            help="threshold-run kernel: streaming scan (GPU, "
+                 "ops/scan_kernels.py) or XLA; auto picks by platform "
+                 "(ops/dispatch.py)"),
         "overflow_policy": Option(
             default="warn", type=str, track=False,
             choices=["warn", "raise", "ignore"],
@@ -97,9 +99,7 @@ class ThresholdHitPlugin(Plugin):
     # -- three-phase structure (shared with the fused subgraph executor) ----
 
     def kernel_config(self, context: Any) -> dict:
-        backend = context.get_config(self, "hits_backend")
-        if backend == "auto":
-            backend = "scan" if jax.default_backend() == "tpu" else "xla"
+        backend = kernel_for("hits", context.get_config(self, "hits_backend"))
         return {
             "threshold": float(context.get_config(self, "threshold")),
             "left_extension": int(context.get_config(self, "left_extension")),
@@ -135,7 +135,7 @@ class ThresholdHitPlugin(Plugin):
         w32 = waves_d.astype(jnp.float32)
         signal = sign_d[:, None] * (w32 - baselines_d[:, None].astype(jnp.float32))
         if cfg["backend"] == "scan":
-            from waveformanalysis_tpu.ops.chain_scan_pallas import (
+            from waveformanalysis_tpu.ops.scan_kernels import (
                 threshold_hits_scan,
             )
 

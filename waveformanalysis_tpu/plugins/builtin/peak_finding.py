@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from waveformanalysis_tpu.dtypes.schema import Field, Schema
 from waveformanalysis_tpu.dtypes.table import Table
 from waveformanalysis_tpu.ops import peaks as PK
+from waveformanalysis_tpu.ops.dispatch import kernel_for
 from waveformanalysis_tpu.plugins.base import Option, Plugin
 from waveformanalysis_tpu.plugins.builtin._wave_source import (
     wave_matrix_view,
@@ -85,7 +86,8 @@ class HitFinderPlugin(Plugin):
     depends_on = []  # dynamic
     description = "Detect peaks in waveforms and extract peak features."
     # 3.2.0: scipy neighbor-threshold condition supported (was rejected)
-    version = "3.3.0"
+    # 3.4.0: peaks_backend resolves through ops/dispatch.py
+    version = "3.4.0"
     kernel_version = PK.KERNEL_VERSION
     save_when = "always"
     output_dtype = HIT_SCHEMA
@@ -118,8 +120,9 @@ class HitFinderPlugin(Plugin):
         "peaks_backend": Option(
             default="auto", type=str, track=False,
             choices=["auto", "scan", "xla"],
-            help="find_peaks kernel: streaming-scan Pallas (TPU, ~3.5x) or "
-                 "XLA reductions; auto picks scan on TPU"),
+            help="find_peaks kernel: streaming scan (GPU, "
+                 "ops/scan_kernels.py) or XLA reductions; auto picks by "
+                 "platform (ops/dispatch.py)"),
         "overflow_policy": Option(
             default="warn", type=str, track=False,
             choices=["warn", "raise", "ignore"],
@@ -154,8 +157,7 @@ class HitFinderPlugin(Plugin):
         """Resolve + validate every option the kernels depend on."""
         threshold = _normalize_threshold(context.get_config(self, "threshold"))
         backend = context.get_config(self, "peaks_backend")
-        if backend == "auto":
-            backend = "scan" if jax.default_backend() == "tpu" else "xla"
+        backend = kernel_for("peaks", backend)
         if threshold is not None and backend == "scan":
             # the streaming-scan kernel does not carry the neighbor-diff
             # state the threshold condition needs; the XLA formulation
@@ -199,9 +201,7 @@ class HitFinderPlugin(Plugin):
             det = sign_d[:, None] * (w32 - baselines_d[:, None].astype(jnp.float32))
             det_len = lengths_d
         if cfg["backend"] == "scan":
-            from waveformanalysis_tpu.ops.chain_scan_pallas import (
-                find_peaks_scan,
-            )
+            from waveformanalysis_tpu.ops.scan_kernels import find_peaks_scan
 
             results = find_peaks_scan(
                 det, height=cfg["height"], prominence=cfg["prominence"],

@@ -190,9 +190,10 @@ class WavePoolFilteredPlugin(Plugin):
     uses_run_config = True
     depends_on = ["records", "wave_pool"]
     description = "Wave pool with per-channel digital filters applied."
-    version = "2.0.0"
+    version = "2.1.0"  # 2.1: filter_backend option
     save_when = "always"
-    # identical filter surface to filtered_waveforms (incl. the engine knob)
+    # identical filter surface to filtered_waveforms (incl. the engine and
+    # filter_backend knobs)
     options = dict(_FILTER_OPTIONS)
 
     def compute(self, context: Any, run_id: str, **kwargs: Any) -> np.ndarray:
@@ -213,6 +214,7 @@ class WavePoolFilteredPlugin(Plugin):
             return filtered_pool
 
         engine = context.get_config(self, "engine")
+        backend = context.get_config(self, "filter_backend")
         channel_config = context.get_config(self, "channel_config")
         base_values = get_filter_base_values(context, self)
 
@@ -242,6 +244,7 @@ class WavePoolFilteredPlugin(Plugin):
                     waves, cfg["filter_type"], bw_sos=cfg["bw_sos"],
                     sg_window_size=cfg["sg_window_size"],
                     sg_poly_order=cfg["sg_poly_order"], engine=engine,
+                    backend=backend,
                 )
                 filtered_pool[gather.reshape(-1)] = np.asarray(
                     filtered, dtype=np.float32

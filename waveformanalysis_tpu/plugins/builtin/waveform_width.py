@@ -50,7 +50,7 @@ class WaveformWidthPlugin(Plugin):
     provides = "waveform_width"
     depends_on = []  # dynamic
     description = "Calculate rise/fall time based on peak detection results."
-    version = "3.1.0"
+    version = "3.2.0"  # 3.2: width_backend option removed (XLA only)
     kernel_version = WD.KERNEL_VERSION
     save_when = "always"
     output_dtype = WAVEFORM_WIDTH_SCHEMA
@@ -65,13 +65,6 @@ class WaveformWidthPlugin(Plugin):
         "fall_low": Option(default=0.1, type=float, help="Fall low fraction"),
         "interpolation": Option(default=True, type=bool,
                                 help="Linear interpolation at crossings"),
-        "width_backend": Option(
-            default="auto", type=str, track=False,
-            help=("Fused-path slot-width kernel: auto (scan on TPU, xla "
-                  "elsewhere), xla (K x 4 masked reductions), scan "
-                  "(streaming Pallas walk, ops/width_scan_pallas.py). "
-                  "Outputs are bit-identical; untracked."),
-        ),
     }
 
     def resolve_depends_on(self, context: Any, run_id: Optional[str] = None):
@@ -82,13 +75,7 @@ class WaveformWidthPlugin(Plugin):
     # -- three-phase structure (shared with the fused subgraph executor) ----
 
     def kernel_config(self, context: Any) -> dict:
-        import jax
-
-        backend = context.get_config(self, "width_backend")
-        if backend == "auto":
-            backend = "scan" if jax.default_backend() == "tpu" else "xla"
         return {
-            "backend": backend,
             "use_filtered": bool(context.get_config(self, "use_filtered")),
             "sampling_rate": float(
                 context.get_config(self, "sampling_rate") or 0.5
@@ -115,15 +102,6 @@ class WaveformWidthPlugin(Plugin):
         the two kernels (the standalone path re-uploads the full wave matrix
         after joining hits on host).
         """
-        if cfg.get("backend") == "scan":
-            return WD.width_from_peak_slots_scan(
-                waves_d,
-                peaks_stage["position"],
-                peaks_stage["valid"],
-                rise_low=cfg["rise_low"], rise_high=cfg["rise_high"],
-                fall_high=cfg["fall_high"], fall_low=cfg["fall_low"],
-                interpolation=cfg["interpolation"],
-            )
         return WD.width_from_peak_slots(
             waves_d.astype(jnp.float32),
             peaks_stage["position"],
@@ -142,7 +120,6 @@ class WaveformWidthPlugin(Plugin):
     # config keys the device program depends on (jit/program cache key)
     DEVICE_CFG_KEYS = (
         "rise_low", "rise_high", "fall_high", "fall_low", "interpolation",
-        "backend",
     )
 
     def finalize_compact(

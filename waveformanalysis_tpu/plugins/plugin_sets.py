@@ -4,7 +4,7 @@ Behavioral analog of the reference plugin sets / profiles
 (reference: waveform_analysis/core/plugins/plugin_sets/__init__.py and
 profiles.py:20-66): named groups of builtin plugins composable into a
 profile. The reference's ``jax`` profile raised NotImplementedError — here
-the TPU-native set IS the default.
+the device-kernel set IS the default.
 """
 
 from __future__ import annotations
@@ -106,8 +106,8 @@ def get_plugin_set(name: str) -> List[Any]:
     return PLUGIN_SETS[name]()
 
 
-def tpu_default() -> List[Any]:
-    """The full TPU-native pipeline (reference analog: profiles.cpu_default)."""
+def default_plugins() -> List[Any]:
+    """The full device pipeline (reference analog: profiles.cpu_default)."""
     out: List[Any] = []
     for name in ("io", "waveform", "records", "peaks", "basic_features",
                  "classification", "tabular", "events"):
@@ -119,7 +119,7 @@ def tpu_default() -> List[Any]:
 def cpu_default() -> List[Any]:
     """Alias for the default profile (kernels run on whatever jax backend is
     active; 'cpu' retained for reference API parity)."""
-    return tpu_default()
+    return default_plugins()
 
 
 def streaming_default() -> List[Any]:
@@ -134,21 +134,20 @@ def streaming_default() -> List[Any]:
         SignalPeaksStreamPlugin,
     )
 
-    return tpu_default() + [SignalPeaksStreamPlugin()]
+    return default_plugins() + [SignalPeaksStreamPlugin()]
 
 
 def jax_accel() -> List[Any]:
     """The reference's never-implemented 'jax' profile
     (reference: profiles.py:39-41 raises NotImplementedError) — in this
     build EVERY profile is the jax-accelerated pipeline."""
-    return tpu_default()
+    return default_plugins()
 
 
 PROFILES: Dict[str, Callable[[], List[Any]]] = {
-    "tpu": tpu_default,
     "cpu": cpu_default,
     "cpu_default": cpu_default,
-    "default": tpu_default,
+    "default": default_plugins,
     "streaming": streaming_default,
     "streaming_default": streaming_default,
     "jax": jax_accel,

@@ -15,7 +15,7 @@ Behavioral analog of the reference streaming engine
 - parallel chunks run in ordered batches with fail-fast cancellation and a
   pickle probe before process pools.
 
-TPU-native note: chunk compute is a jitted kernel call, so "parallel"
+Note: chunk compute is a jitted kernel call, so "parallel"
 here pipelines host prep against device execution (threads suffice — XLA
 releases the GIL); multi-chip chunk parallelism lives in
 waveformanalysis_tpu/parallel/scan.py as a sharded scan.
@@ -110,7 +110,7 @@ class StreamingPlugin(Plugin):
     # device_chunk_finalize hooks can run streaming_config
     # executor_type="device" — chunks become shards of a jax Mesh and every
     # group of n_shards chunks dispatches as ONE shard_map program (the
-    # TPU-native analog of the reference's chunk thread pool,
+    # device analog of the reference's chunk thread pool,
     # reference: waveform_analysis/core/plugins/core/streaming.py:740-880)
     device_parallel: bool = False
     options = {

@@ -7,7 +7,7 @@ writes, fcntl lock files with stale detection, zero-copy ``np.memmap`` loads,
 buffered streaming saves, per-key JSON metadata carrying lineage / dtype /
 checksum, and DataFrame persistence via Parquet/pickle.
 
-TPU-native extension: in addition to NumPy structured arrays (format
+Device-path extension: in addition to NumPy structured arrays (format
 "structured", byte-identical zero-copy memmap), a
 :class:`~waveformanalysis_tpu.dtypes.table.Table` is stored as packed
 per-field buffers in a single ``.bin`` with a field offset table in the
@@ -477,7 +477,7 @@ class MemmapStorage:
 def _pack_table(table: Table) -> tuple:
     """Pack Table columns into one contiguous buffer + field offset table.
 
-    64-byte aligns each field so memmapped views are cache/TPU-DMA friendly.
+    64-byte aligns each field so memmapped views are cache/DMA friendly.
     """
     host = table.to_host()
     parts: List[bytes] = []

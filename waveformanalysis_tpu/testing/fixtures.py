@@ -60,6 +60,71 @@ def make_fake_st_waveforms(
     return arr
 
 
+def format_csv_rows(values: np.ndarray, delimiter: str = ";") -> bytes:
+    """Decimal text of a 2-D integer array: ``delimiter``-joined fields,
+    one newline-terminated line per row — byte-identical to
+    ``";".join(str(int(v)) for v in row) + "\\n"``, built with array ops."""
+    v = np.asarray(values, dtype=np.int64)
+    if v.size == 0:
+        return b""
+    neg = v < 0
+    mag = np.abs(v)
+    ndig = np.ones(v.shape, np.int64)
+    for k in range(1, 19):
+        ndig += mag >= 10 ** k
+    width = ndig + neg + 1                     # digits, sign, separator
+    ends = np.cumsum(width.ravel())            # one past each separator
+    starts = ends - width.ravel()
+    buf = np.empty(int(ends[-1]), np.uint8)
+    buf[starts[neg.ravel()]] = ord("-")
+    sep = np.full(v.shape, ord(delimiter), np.uint8)
+    sep[:, -1] = ord("\n")
+    buf[ends - 1] = sep.ravel()
+    first = starts + neg.ravel()               # most significant digit
+    flat_mag, flat_nd = mag.ravel(), ndig.ravel()
+    for k in range(int(flat_nd.max())):        # k-th digit from the right
+        has = flat_nd > k
+        buf[(first + flat_nd - 1 - k)[has]] = (
+            ord("0") + (flat_mag[has] // 10 ** k) % 10)
+    return buf.tobytes()
+
+
+def make_pulse_waves(
+    n: int,
+    wave_length: int,
+    seed: int = 0,
+    baseline: int = 8000,
+    polarity: int = -1,
+    noise: float = 3.0,
+    chunk: int = 32768,
+) -> np.ndarray:
+    """(n, wave_length) int16 digitizer waves with realistic pulses.
+
+    Every event holds one narrow (S1-like, sigma 1-3 samples) or wide
+    (S2-like, sigma 12-25 samples) Gaussian pulse of 100-2000 ADC, a
+    quarter also a second narrow pulse, on a baseline with Gaussian noise.
+    Generated in row chunks so a full run needs no multi-GiB temporaries.
+    """
+    rng = np.random.default_rng(seed)
+    t = np.arange(wave_length, dtype=np.float32)
+    out = np.empty((n, wave_length), np.int16)
+    lo, hi = wave_length // 5, 3 * wave_length // 5
+    for a in range(0, n, chunk):
+        m = min(chunk, n - a)
+        wide = rng.random(m) < 0.5
+        sigma = np.where(wide, rng.uniform(12, 25, m), rng.uniform(1, 3, m))
+        amp = rng.uniform(100, 2000, m)
+        c1 = rng.uniform(lo, hi, m)
+        c2 = c1 + rng.uniform(30, 60, m)
+        amp2 = np.where(rng.random(m) < 0.25, rng.uniform(100, 800, m), 0.0)
+        pulse = (amp[:, None] * np.exp(
+            -((t - c1[:, None]) ** 2) / (2 * sigma[:, None] ** 2))
+            + amp2[:, None] * np.exp(-((t - c2[:, None]) ** 2) / 8.0))
+        w = baseline + polarity * pulse + rng.normal(0, noise, pulse.shape)
+        out[a:a + m] = np.round(w).astype(np.int16)
+    return out
+
+
 def make_synthetic_vx2730_run(
     data_root: str,
     run_name: str = "run_001",
@@ -75,6 +140,7 @@ def make_synthetic_vx2730_run(
     seed: int = 0,
     pulses: Optional[Any] = None,
     channel_offset_ps: int = 0,
+    waves: Optional[np.ndarray] = None,
 ) -> str:
     """Write a synthetic VX2730 CSV run tree and return the run directory.
 
@@ -95,34 +161,46 @@ def make_synthetic_vx2730_run(
     ``channel_offset_ps`` staggers channel ``ch``'s timestamps by
     ``ch * channel_offset_ps`` — cross-channel gaps then discriminate the
     event-layer time windows (df_events / hit_grouped / df_paired).
+
+    ``waves`` (n_channels, n_rows, n_samples) writes the given integer
+    samples instead (one file per channel). Rows are formatted in bulk by
+    :func:`format_csv_rows`, so a run at full chunk scale writes in
+    seconds.
     """
     import os
 
     rng = np.random.default_rng(seed)
     raw_dir = os.path.join(str(data_root), run_name, "RAW")
     os.makedirs(raw_dir, exist_ok=True)
-    header = "HEADER LINE 1\nHEADER LINE 2\n"
+    header = b"HEADER LINE 1\nHEADER LINE 2\n"
     for ch in range(n_channels):
         for fi in range(n_files_per_channel):
-            lines = []
-            t0 = fi * n_rows * dt_between_ps
-            for i in range(n_rows):
-                samples = np.full(n_samples, baseline, dtype=np.int64)
+            if waves is not None:
+                samples = np.asarray(waves[ch], dtype=np.int64)
+            else:
+                samples = np.full((n_rows, n_samples), baseline, np.int64)
                 if noise:
-                    samples += rng.integers(-noise, noise + 1, n_samples)
+                    # one draw per row: the same stream as a per-row loop
+                    for i in range(n_rows):
+                        samples[i] += rng.integers(-noise, noise + 1,
+                                                   n_samples)
                 if pulses is None:
-                    samples[pulse_offset:pulse_offset + 5] -= pulse_height
+                    samples[:, pulse_offset:pulse_offset + 5] -= pulse_height
                 else:
                     for off, height, width in pulses:
-                        samples[off:off + width] -= int(height)
-                ts = t0 + i * dt_between_ps + ch * channel_offset_ps
-                fields = [0, ch, ts, 0, 0, 0, 0]
-                fields.extend(int(s) for s in samples)
-                lines.append(";".join(str(f) for f in fields))
+                        samples[:, off:off + width] -= int(height)
+            rows = len(samples)
+            t0 = fi * rows * dt_between_ps
+            ts = (t0 + np.arange(rows, dtype=np.int64) * dt_between_ps
+                  + ch * channel_offset_ps)
+            fields = np.zeros((rows, 7), np.int64)
+            fields[:, 1] = ch
+            fields[:, 2] = ts
             path = os.path.join(raw_dir, f"Data_CH{ch}_{fi}.CSV")
-            body = "\n".join(lines) + "\n"
-            with open(path, "w") as fh:
-                fh.write((header if fi == 0 else "") + body)
+            with open(path, "wb") as fh:
+                if fi == 0:
+                    fh.write(header)
+                fh.write(format_csv_rows(np.hstack([fields, samples])))
     return os.path.join(str(data_root), run_name)
 
 

@@ -20,7 +20,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--out-dir", default="docs/plugins",
                    help="Documentation output directory")
-    p.add_argument("--profile", default="tpu", choices=["tpu", "cpu", "default"],
+    p.add_argument("--profile", default="default", choices=["default", "cpu"],
                    help="Plugin profile to document")
     p.add_argument("--variant", default="human", choices=["human", "agent"],
                    help="Documentation style")
